@@ -1,0 +1,151 @@
+"""Reshape engine: converting data between datatypes/layouts across deps.
+
+Reference: parsec/parsec_reshape.c (771 LoC) — when a dependency's
+datatype differs from the producer's output, the runtime interposes a
+*reshape promise* (a datacopy future, remote_dep.h:100-108) whose trigger
+converts the data; the conversion runs on a compute or comm thread and is
+shared by every consumer needing the same type
+(parsec_local_reshape, remote_dep_mpi.c:642).
+
+Design: a "datatype" is a :class:`ReshapeSpec` — a named,
+composable functional transform (dtype cast, transpose, arbitrary
+callable). Producer-side specs (``Out.reshape``) convert before the value
+fans out; consumer-side specs (``In.reshape``) convert on receipt. Both
+compose into one spec resolved through a shared
+:class:`~parsec_tpu_torch.core.future.DataCopyFuture`, so N consumers asking for
+the same layout trigger exactly one conversion (the promise-sharing
+property of the reference). Transforms on CUDA tensors run on the card, so a conversion of a
+device-resident tile needs no host bounce.
+"""
+
+from __future__ import annotations
+
+import itertools
+import weakref
+from typing import Any, Callable, Optional
+
+_spec_ids = itertools.count(1)
+
+
+class ReshapeSpec:
+    """A named layout/datatype conversion (the parsec_datatype_t analog of
+    a dep's ``[type = ...]`` annotation in JDF).
+
+    ``dtype``: cast target (numpy dtype name or torch dtype).
+    ``transpose``: swap the last two axes.
+    ``fn``: arbitrary transform ``value -> value`` (applied last).
+    For the compiled executors, which apply specs to whole gathered
+    stacks ``(batch, mb, nb)``, ``fn`` must be batch-safe — operate on
+    the last two axes only (dtype/transpose are batch-safe by
+    construction). The host runtime applies specs per value.
+    ``name``: the human-readable half of the spec's identity. The FULL
+    conversion identity is ``(name, fn-object)`` (see :attr:`key`):
+    caches and the planners cannot verify behavioral equality of two
+    same-named ``fn`` specs, so two separately-built instances with the
+    same name are NOT the same conversion unless they share the same
+    ``fn`` object. Specs built only from dtype/transpose get a
+    canonical name automatically (and ``fn is None``, so name alone
+    does identify them); specs with ``fn`` get a unique name unless
+    named. Same-named fn specs landing on one gathered flow must share
+    the SAME spec instance (or at least the same ``fn`` object) or
+    planning rejects the taskpool.
+    """
+
+    def __init__(self, dtype: Any = None, transpose: bool = False,
+                 fn: Optional[Callable[[Any], Any]] = None,
+                 name: Optional[str] = None):
+        self.dtype = dtype
+        self.transpose = transpose
+        self.fn = fn
+        # compose() memo: same (self, then) pair -> SAME composed spec
+        # object, so (name, fn) identity holds across the per-edge
+        # compose calls iterate_successors makes (a fresh lambda per
+        # call would defeat conversion sharing and wave batching).
+        # Weak values bound the cache (ADVICE r5 #2): an entry lives
+        # exactly as long as something (a plan, an in-flight dep) holds
+        # the composed spec, so a long-lived producer spec composed
+        # against many transient consumer specs no longer accumulates
+        # entries — and pins — forever.
+        self._compose_cache: "weakref.WeakValueDictionary[int, ReshapeSpec]" \
+            = weakref.WeakValueDictionary()
+        if name is None:
+            if fn is None:
+                name = f"cast:{dtype}:T{int(transpose)}"
+            else:
+                name = f"fn:{next(_spec_ids)}"
+        self.name = name
+
+    @property
+    def key(self):
+        # (name, fn-object): name alone is the documented conversion
+        # identity, but caches keyed by it (DataCopyFuture's shared
+        # conversions, compiled-plan signatures) cannot verify
+        # behavioral equality of two same-named fn specs — including
+        # the fn object makes such a pair MISS (each edge converts
+        # correctly) instead of silently sharing one edge's conversion
+        return (self.name, self.fn)
+
+    def apply(self, value: Any) -> Any:
+        if value is None:
+            return None
+        out = value
+        if self.dtype is not None:
+            import torch
+            if isinstance(out, torch.Tensor):
+                out = out.to(self.dtype)
+            else:
+                import numpy as np
+                out = np.asarray(out, dtype=self.dtype)
+        if self.transpose:
+            out = out.swapaxes(-1, -2)
+        if self.fn is not None:
+            out = self.fn(out)
+        return out
+
+    def compose(self, then: Optional["ReshapeSpec"]) -> "ReshapeSpec":
+        """Sequential composition: ``self`` then ``then`` (producer-side
+        reshape followed by consumer-side reshape). Memoized per
+        ``then`` instance (weakly — see ``_compose_cache``): every edge
+        composing the same pair while any consumer still holds the
+        composed spec shares ONE spec object (one ``fn``, one cache
+        key, one wave-group signature). The id() key is safe both ways:
+        while an entry lives, the composed spec's closure holds
+        ``then`` strongly, so its id cannot be recycled; and the entry
+        dies WITH the composed spec, so a recycled id can never alias a
+        stale entry."""
+        if then is None:
+            return self
+        cached = self._compose_cache.get(id(then))
+        if cached is not None:
+            return cached
+        spec = ReshapeSpec(fn=lambda v, a=self, b=then: b.apply(a.apply(v)),
+                           name=f"{self.name}>>{then.name}")
+        self._compose_cache[id(then)] = spec
+        return spec
+
+    def __call__(self, value: Any) -> Any:
+        return self.apply(value)
+
+    def __repr__(self) -> str:
+        return f"<ReshapeSpec {self.name}>"
+
+
+def compose_specs(producer: Optional[ReshapeSpec],
+                  consumer: Optional[ReshapeSpec]) -> Optional[ReshapeSpec]:
+    """Combine an Out-side and an In-side spec into the single conversion
+    a dep needs (either side may be absent)."""
+    if producer is None:
+        return consumer
+    return producer.compose(consumer)
+
+
+def resolve_reshape(value: Any, spec: Optional[ReshapeSpec]) -> Any:
+    """Resolve a possibly-promised, possibly-reshaped dep value: futures
+    yield their (cached, shared) converted copy; concrete values convert
+    directly (parsec_local_reshape analog)."""
+    from .future import DataCopyFuture
+    if isinstance(value, DataCopyFuture):
+        return value.get_copy(spec)
+    if spec is not None:
+        return spec.apply(value)
+    return value

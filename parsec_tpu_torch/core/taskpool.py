@@ -1,0 +1,329 @@
+"""Taskpool and task-class structures with dependency tracking.
+
+Mirrors:
+- ``parsec_taskpool_t`` (parsec_internal.h:119-161): a DAG instance with a
+  task counter, termination-detection monitor and task-class array.
+- ``parsec_task_class_t`` (parsec_internal.h:381-425): static description of
+  a task type — params, flows, incarnations, and the vtable
+  (iterate_successors, release_deps, make_key, ...).
+- Dependency tracking (parsec.c:1503-1649): two strategies — a *counter*
+  per waiting task, or a *mask* of input-dependency bits; both keyed by the
+  task key in a hash table (``parsec_hash_find_deps``).
+
+The release-deps path (parsec.c:1694-1921) is generalized here: a completed
+task's class enumerates :class:`SuccessorRef`s; the taskpool counts down /
+ORs in each satisfied dependency and constructs the successor task when its
+goal is reached, attaching the flowing data values. Dependency accounting
+is pure Python under striped locks.
+"""
+
+from __future__ import annotations
+
+import itertools
+import threading
+from dataclasses import dataclass
+from typing import Any, Callable, Dict, Iterable, List, Optional, Sequence, Tuple
+
+from .task import Chore, DeviceType, Flow, FlowAccess, Task
+from ..utils.debug import debug_verbose
+
+# Dependency-tracking strategies (reference jdf.h:88-91 dep-management modes)
+DEPS_COUNTER = "counter"    # parsec_update_deps_with_counter (parsec.c:1554)
+DEPS_MASK = "mask"          # parsec_update_deps_with_mask (parsec.c:1601)
+
+
+@dataclass
+class SuccessorRef:
+    """One satisfied dependency flowing from a completed task to a successor.
+
+    Produced by ``TaskClass.iterate_successors`` (the generated
+    iterate_successors of jdf2c.c); consumed by ``Taskpool.activate_dep``.
+    """
+    task_class: "TaskClass"          # successor's class
+    locals: Tuple[int, ...]          # successor's parameter assignment
+    flow_name: str                   # successor's input flow receiving data
+    value: Any = None                # payload (None for CTL deps)
+    dep_index: int = 0               # input-dep bit for mask mode
+    priority: int = 0
+    src_flow: Optional[str] = None   # producer's flow
+    reshape_spec: Any = None         # composed reshape (core/reshape.py);
+                                     # resolved before the value fans out
+
+
+@dataclass
+class DataRef:
+    """A terminal output dependency: write a value back to a collection
+    (the ``-> A(k, k)`` form of a JDF dep)."""
+    collection: Any                  # data.collection.DataCollection
+    key: Tuple[int, ...]
+    value: Any = None
+
+
+class TaskClass:
+    """Static description of a task type (parsec_task_class_t analog).
+
+    DSLs construct instances and fill the vtable callables:
+
+    - ``iterate_successors(task) -> Iterable[SuccessorRef | DataRef]``
+    - ``deps_goal(locals) -> int`` — number of input deps (counter mode) or
+      bitmask of input-dep indices (mask mode) that must be satisfied
+    - ``make_key(locals)``, ``priority(locals)``
+    """
+
+    def __init__(self, name: str, tc_id: int, params: Sequence[str],
+                 flows: Sequence[Flow], deps_mode: str = DEPS_COUNTER):
+        self.name = name
+        self.tc_id = tc_id
+        self.params = tuple(params)
+        self.flows: List[Flow] = []
+        for i, f in enumerate(flows):
+            f.index = i
+            self.flows.append(f)
+        self.flow_by_name: Dict[str, Flow] = {f.name: f for f in self.flows}
+        self.deps_mode = deps_mode
+        self.incarnations: List[Chore] = []
+        # vtable — filled by the DSL layer
+        self.iterate_successors: Callable[[Task], Iterable] = lambda task: ()
+        self.deps_goal: Callable[[Tuple[int, ...]], int] = lambda locals: 0
+        self.priority_fn: Callable[[Tuple[int, ...]], int] = lambda locals: 0
+        self.on_complete: Optional[Callable[[Task], None]] = None
+
+    # -- vtable defaults ---------------------------------------------------
+    def make_key(self, locals: Tuple[int, ...]) -> Tuple[int, Tuple[int, ...]]:
+        return (self.tc_id, tuple(locals))
+
+    def add_chore(self, chore: Chore) -> "TaskClass":
+        self.incarnations.append(chore)
+        return self
+
+    def chore_for(self, device_type: DeviceType) -> Optional[Chore]:
+        for c in self.incarnations:
+            if c.device_type & device_type:
+                return c
+        return None
+
+    @property
+    def output_flows(self) -> List[Flow]:
+        return [f for f in self.flows
+                if (f.access & FlowAccess.WRITE) and not f.is_ctl]
+
+    @property
+    def input_flows(self) -> List[Flow]:
+        return [f for f in self.flows
+                if (f.access & FlowAccess.READ) and not f.is_ctl]
+
+    def __repr__(self) -> str:
+        return f"<TaskClass {self.name} id={self.tc_id}>"
+
+
+class _PendingDeps:
+    """Hash-table dependency tracking for not-yet-ready tasks.
+
+    Entry per task key: satisfied counter/mask + accumulated input values.
+    Reference: parsec_hash_find_deps (parsec.c:1525) + update functions.
+    Striped locks stand in for the reference's bucket-locked hash table
+    (class/parsec_hash_table.c).
+    """
+
+    _NSTRIPES = 64
+
+    def __init__(self) -> None:
+        self._entries: Dict[Any, Dict[str, Any]] = {}
+        self._locks = [threading.Lock() for _ in range(self._NSTRIPES)]
+
+    def _lock_for(self, key) -> threading.Lock:
+        return self._locks[hash(key) % self._NSTRIPES]
+
+    @staticmethod
+    def _count_locked(ent: Dict[str, Any], key, flow_name: str, value: Any,
+                      dep_index: int, goal: int, mode: str,
+                      priority: int) -> bool:
+        """Apply ONE satisfied dep to an entry; True when the goal is
+        reached. Caller holds the entry's stripe lock. The single copy of
+        the count/mask accounting shared by :meth:`update` and
+        :meth:`update_batch`."""
+        if value is not None:
+            ent["data"][flow_name] = value
+        ent["priority"] = max(ent["priority"], priority)
+        if mode == DEPS_MASK:
+            bit = 1 << dep_index
+            if ent["mask"] & bit:
+                raise RuntimeError(
+                    f"dependency bit {dep_index} satisfied twice for {key}")
+            ent["mask"] |= bit
+            return ent["mask"] == goal
+        ent["count"] += 1
+        return ent["count"] == goal
+
+    def _entry_locked(self, key, priority: int) -> Dict[str, Any]:
+        ent = self._entries.get(key)
+        if ent is None:
+            ent = {"count": 0, "mask": 0, "data": {}, "priority": priority}
+            self._entries[key] = ent
+        return ent
+
+    def update(self, key, flow_name: str, value: Any, dep_index: int,
+               goal: int, mode: str, priority: int) -> Optional[Dict[str, Any]]:
+        """Record one satisfied dep; return the entry if the goal is reached
+        (caller then constructs and schedules the task)."""
+        with self._lock_for(key):
+            ent = self._entry_locked(key, priority)
+            if self._count_locked(ent, key, flow_name, value, dep_index,
+                                  goal, mode, priority):
+                del self._entries[key]
+                return ent
+            return None
+
+    def update_batch(self, items) -> List[Tuple[int, Dict[str, Any]]]:
+        """Batched :meth:`update`: ``items`` is a sequence of
+        ``(key, flow_name, value, dep_index, goal, mode, priority)``
+        tuples, grouped by lock stripe so each stripe lock is taken ONCE
+        per batch. Returns ``(item_index, entry)`` for every dependency
+        that completed its target's goal."""
+        by_stripe: Dict[int, List[int]] = {}
+        for i, item in enumerate(items):
+            by_stripe.setdefault(hash(item[0]) % self._NSTRIPES,
+                                 []).append(i)
+        out = []
+        for stripe, idxs in by_stripe.items():
+            with self._locks[stripe]:
+                for i in idxs:
+                    (key, flow_name, value, dep_index, goal, mode,
+                     priority) = items[i]
+                    ent = self._entry_locked(key, priority)
+                    if self._count_locked(ent, key, flow_name, value,
+                                          dep_index, goal, mode, priority):
+                        del self._entries[key]
+                        out.append((i, ent))
+        return out
+
+    def __len__(self) -> int:
+        return len(self._entries)
+
+
+_tp_counter = itertools.count(1)
+
+
+class Taskpool:
+    """A DAG instance (parsec_taskpool_t analog).
+
+    Lifecycle: construct → ``context.add_taskpool`` (installs termdet,
+    runs ``startup_hook`` to seed no-predecessor tasks) → tasks flow through
+    the scheduler → termdet fires ``_on_terminated`` when
+    ``nb_tasks == nb_pending_actions == 0``.
+    """
+
+    def __init__(self, name: str = "taskpool"):
+        self.name = name
+        self.taskpool_id = next(_tp_counter)
+        self.task_classes: List[TaskClass] = []
+        self._tc_by_name: Dict[str, TaskClass] = {}
+        self.context = None                      # set by add_taskpool
+        self.pending = _PendingDeps()
+        self.monitor = None                      # termdet monitor
+        self.on_complete: Optional[Callable] = None
+        self.error: Optional[BaseException] = None
+        self._complete_evt = threading.Event()
+        # DSL hook: enumerate startup (no-predecessor) tasks
+        self.startup_hook: Callable[["Taskpool"], List[Task]] = lambda tp: []
+
+    # -- task classes -----------------------------------------------------
+    def add_task_class(self, tc: TaskClass) -> TaskClass:
+        self.task_classes.append(tc)
+        self._tc_by_name[tc.name] = tc
+        return tc
+
+    def get_task_class(self, name: str) -> TaskClass:
+        return self._tc_by_name[name]
+
+    def new_task_class(self, name: str, params: Sequence[str],
+                       flows: Sequence[Flow],
+                       deps_mode: str = DEPS_COUNTER) -> TaskClass:
+        tc = TaskClass(name, len(self.task_classes), params, flows, deps_mode)
+        return self.add_task_class(tc)
+
+    # -- termdet glue (reference parsec_internal.h:123-145) ---------------
+    def set_nb_tasks(self, n: int) -> None:
+        self.monitor.set_nb_tasks(n)
+
+    def addto_nb_tasks(self, d: int) -> None:
+        self.monitor.addto_nb_tasks(d)
+
+    def addto_runtime_actions(self, d: int) -> None:
+        self.monitor.addto_runtime_actions(d)
+
+    @property
+    def nb_tasks(self) -> int:
+        return self.monitor.nb_tasks if self.monitor else 0
+
+    def _on_terminated(self) -> None:
+        if self._complete_evt.is_set():
+            # terminated is final: an abort()ed pool's still-queued tasks
+            # keep draining and the monitor re-fires when its counters
+            # hit zero — a refire must not re-report the pool
+            return
+        debug_verbose(4, "taskpool", "%s terminated", self.name)
+        self._complete_evt.set()
+        if self.on_complete is not None:
+            self.on_complete(self)
+        if self.context is not None:
+            self.context._taskpool_terminated(self)
+
+    def abort(self, exc: BaseException) -> None:
+        """parsec_abort analog: a task body failed — record the error and
+        force-terminate so waiters are released instead of hanging."""
+        if self.error is None:
+            self.error = exc
+        self._on_terminated()
+
+    @property
+    def completed(self) -> bool:
+        return self._complete_evt.is_set()
+
+    def wait_completed(self, timeout: Optional[float] = None) -> bool:
+        ok = self._complete_evt.wait(timeout)
+        if self.error is not None:
+            raise RuntimeError(
+                f"taskpool {self.name} aborted: {self.error}") from self.error
+        return ok
+
+    # -- dependency activation (parsec.c:1694-1780 analog) ----------------
+    def _ready_task(self, ref: SuccessorRef, ent: Dict[str, Any]) -> Task:
+        """Construct the ready Task for a goal-completing entry."""
+        tc = ref.task_class
+        task = Task(self, tc, ref.locals,
+                    priority=max(ent["priority"], tc.priority_fn(ref.locals)))
+        task.data.update(ent["data"])
+        return task
+
+    def activate_dep(self, ref: SuccessorRef) -> Optional[Task]:
+        """Count one satisfied input dep of ``ref``'s target task; if that
+        completes the target's goal, construct the ready Task and return it
+        (caller schedules it)."""
+        tc = ref.task_class
+        ent = self.pending.update(tc.make_key(ref.locals), ref.flow_name,
+                                  ref.value, ref.dep_index,
+                                  tc.deps_goal(ref.locals), tc.deps_mode,
+                                  ref.priority)
+        if ent is None:
+            return None
+        return self._ready_task(ref, ent)
+
+    def activate_deps(self, refs: Sequence[SuccessorRef]) -> List[Task]:
+        """Batched :meth:`activate_dep`: count all of a completed task's
+        satisfied deps in one striped-lock pass and return every successor
+        whose goal was reached."""
+        if len(refs) == 1:
+            task = self.activate_dep(refs[0])
+            return [task] if task is not None else []
+        items = []
+        for ref in refs:
+            tc = ref.task_class
+            items.append((tc.make_key(ref.locals), ref.flow_name, ref.value,
+                          ref.dep_index, tc.deps_goal(ref.locals),
+                          tc.deps_mode, ref.priority))
+        return [self._ready_task(refs[i], ent)
+                for i, ent in self.pending.update_batch(items)]
+
+    def __repr__(self) -> str:
+        return f"<Taskpool {self.name} id={self.taskpool_id}>"

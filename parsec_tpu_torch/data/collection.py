@@ -1,0 +1,88 @@
+"""Data collections.
+
+Reference: include/parsec/data_distribution.h:26-100 — a collection is a
+vtable of ``rank_of(key)``, ``vpid_of(key)`` and ``data_of(key)`` supplied
+by the user, with registered ids so multiple taskpools can reference the
+same collection (data_distribution.c).
+"""
+
+from __future__ import annotations
+
+import itertools
+import threading
+from typing import Any, Dict, Iterable, Optional
+
+_dc_ids = itertools.count(1)
+
+
+class DataCollection:
+    """Base collection vtable (parsec_data_collection_t analog)."""
+
+    #: scratch collections carry intra-DAG temporaries (e.g. QR factor
+    #: tiles); compiled executors neither read their host tiles nor
+    #: write results back
+    scratch = False
+
+    def __init__(self, name: str = "dc", nodes: int = 1, myrank: int = 0):
+        self.name = name
+        self.dc_id = next(_dc_ids)
+        self.nodes = nodes
+        self.myrank = myrank
+
+    # -- vtable -----------------------------------------------------------
+    def rank_of(self, key) -> int:
+        return 0
+
+    def vpid_of(self, key) -> int:
+        return 0
+
+    def data_of(self, key) -> Any:
+        """Current value of the datum at ``key`` (local keys only)."""
+        raise NotImplementedError
+
+    def write_tile(self, key, value) -> None:
+        """Store a new version at ``key`` (terminal output deps)."""
+        raise NotImplementedError
+
+    def keys(self) -> Iterable:
+        raise NotImplementedError
+
+    def is_local(self, key) -> bool:
+        return self.rank_of(key) == self.myrank
+
+
+class LocalCollection(DataCollection):
+    """Dict-backed single-rank collection — the simplest data_of/write
+    storage, used by tests and as DTD scratch space. ``myrank`` is the
+    OWNING rank: in a multi-rank context, tasks whose placement derives
+    from a local collection (serving decode pools on a worker rank of
+    an elastic mesh) must land on the rank that holds the tiles — the
+    old hardwired ``rank_of == 0`` silently shipped every such task to
+    rank 0."""
+
+    def __init__(self, name: str = "local", init: Optional[Dict] = None,
+                 myrank: int = 0):
+        super().__init__(name=name, myrank=myrank)
+        self._store: Dict[Any, Any] = dict(init or {})
+        self._lock = threading.Lock()
+
+    def rank_of(self, key) -> int:
+        return self.myrank
+
+    def data_of(self, key) -> Any:
+        with self._lock:
+            return self._store.get(key)
+
+    def write_tile(self, key, value) -> None:
+        with self._lock:
+            self._store[key] = value
+
+    def keys(self):
+        with self._lock:
+            return list(self._store.keys())
+
+    def drop_tile(self, key) -> None:
+        """Forget the tile at ``key`` (no-op when absent) — long-lived
+        serving collections reclaim finished requests' tiles."""
+        with self._lock:
+            self._store.pop(key, None)

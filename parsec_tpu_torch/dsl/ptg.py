@@ -1,0 +1,471 @@
+"""PTG: parameterized task graphs (the JDF-language equivalent).
+
+Reference: the JDF language + parsec_ptgpp source-to-source compiler
+(parsec/interfaces/ptg/ptg-compiler/: parsec.l, parsec.y, jdf2c.c 8,636
+LoC). A JDF task class declares parameters with ranges, a partitioning
+predicate (``: A(k, k)``), per-flow guarded dependencies
+(``RW T <- (k == 0) ? A(k, k) : T SYRK(k-1, k)``; ``-> T TRSM(k+1..NT, k)``)
+and per-device bodies. The generated C gives PTG its key property:
+**O(1) distributed dependency discovery** — each rank evaluates, from
+closed-form expressions, which tasks exist, who their successors are, and
+which are remote, with no global graph materialization.
+
+Here the same structure is expressed directly in Python: guards, parameter
+ranges and dependency targets are closures over the taskpool globals, so
+discovery stays closed-form (no graph is ever materialized). Both sides of
+each edge are declared (``ins`` on the consumer, ``outs`` on the producer)
+exactly as in JDF; :func:`check_taskpool` cross-validates the two views the
+way the reference's iterators_checker PINS module does at runtime.
+
+Dependency counting uses the mask strategy with one bit per consumer flow
+(a JDF flow has exactly one active input dependency per task instance, so
+flow-granular bits are sufficient and duplicate activations are caught —
+reference mask mode, parsec.c:1601). Exception: classes with a CTL-gather
+flow (``In(gather=True)``) use counter mode — N producers feed one flow,
+so the per-flow bit cannot count them and duplicate detection is traded
+away exactly as in the reference's counter mode (parsec.c:1554).
+
+Example (tiled Cholesky's POTRF class)::
+
+    tp = ptg.Taskpool("potrf", NT=4, A=A)
+    POTRF = tp.task_class(
+        "POTRF", params=("k",),
+        space=lambda g: ((k,) for k in range(g.NT)),
+        affinity=lambda g, k: (g.A, (k, k)),
+        flows=[
+          ptg.FlowSpec("T", ptg.RW,
+            ins=[ptg.In(data=lambda g, k: (g.A, (k, k)),
+                        guard=lambda g, k: k == 0),
+                 ptg.In(src=("SYRK", lambda g, k: (k - 1, k), "T"),
+                        guard=lambda g, k: k > 0)],
+            outs=[ptg.Out(dst=("TRSM",
+                               lambda g, k: [(m, k) for m in range(k + 1, g.NT)],
+                               "A"),),
+                  ptg.Out(data=lambda g, k: (g.A, (k, k)))]),
+        ])
+    @POTRF.body
+    def potrf_body(task, T):
+        return cholesky_tile(T)
+"""
+
+from __future__ import annotations
+
+import types
+from dataclasses import dataclass, field
+from typing import Any, Callable, Dict, Iterable, List, Optional, Sequence, Tuple
+
+from ..core.future import DataCopyFuture
+from ..core.reshape import compose_specs
+from ..core.task import Chore, DeviceType, Flow, FlowAccess, Task
+from ..core.taskpool import DEPS_COUNTER, DEPS_MASK, DataRef, \
+    SuccessorRef, TaskClass
+from ..core.taskpool import Taskpool as CoreTaskpool
+
+READ = FlowAccess.READ
+WRITE = FlowAccess.WRITE
+RW = FlowAccess.RW
+CTL = FlowAccess.CTL
+
+
+@dataclass
+class In:
+    """Consumer-side dependency of a flow (JDF ``<-``).
+
+    Exactly one of:
+    - ``src=(class_name, params_fn, flow_name)``: value produced by another
+      task (``<- T SYRK(k-1, k)``)
+    - ``data=lambda g, *p: (collection, key)``: read from a collection
+      (``<- A(k, k)``)
+    - ``new=lambda g, *p: value``: materialize a fresh value (JDF ``NEW``)
+    ``guard`` selects whether this dep is active for a task instance; the
+    guards of a flow's ins must be disjoint (one active input per flow).
+    ``reshape`` (core.reshape.ReshapeSpec) converts the incoming value to
+    this consumer's datatype/layout — the JDF ``[type = ...]`` annotation
+    (reshape promises, parsec_reshape.c).
+
+    ``gather=True`` (CTL flows only): ``src``'s params_fn returns a LIST
+    of producer coordinates and the flow waits for ALL of them — the
+    reference's CTL-gather fan-in (tests/dsl/ptg/controlgather/
+    ctlgat.jdf, PARSEC_HAS_CTL_GATHER). A class with a gather flow uses
+    counter-mode dependency tracking.
+    """
+    src: Optional[Tuple[str, Callable, str]] = None
+    data: Optional[Callable] = None
+    new: Optional[Callable] = None
+    guard: Optional[Callable] = None
+    reshape: Optional[Any] = None
+    gather: bool = False
+
+    def active(self, g, params) -> bool:
+        return self.guard is None or bool(self.guard(g, *params))
+
+
+@dataclass
+class Out:
+    """Producer-side dependency of a flow (JDF ``->``).
+
+    Exactly one of:
+    - ``dst=(class_name, params_fn, flow_name)``: feed another task;
+      ``params_fn`` may return one tuple or a list of tuples (ranged deps,
+      ``-> T TRSM(k+1..NT-1, k)``)
+    - ``data=lambda g, *p: (collection, key)``: terminal write-back
+    ``reshape`` converts the produced value before it reaches this dep's
+    target (producer-side ``[type = ...]``); it composes with the
+    consumer's ``In.reshape``.
+    """
+    dst: Optional[Tuple[str, Callable, str]] = None
+    data: Optional[Callable] = None
+    guard: Optional[Callable] = None
+    reshape: Optional[Any] = None
+
+    def active(self, g, params) -> bool:
+        return self.guard is None or bool(self.guard(g, *params))
+
+
+@dataclass
+class FlowSpec:
+    """One flow of a task class.
+
+    ``tile``: optional ``lambda g, *p: (collection, key)`` naming the
+    logical tile this flow reads/writes (JDF's data-placement info). Not
+    needed by the host runtime (values travel with activations); kept
+    for the compiled executors of a later slice.
+    """
+    name: str
+    access: FlowAccess
+    ins: List[In] = field(default_factory=list)
+    outs: List[Out] = field(default_factory=list)
+    tile: Optional[Callable] = None
+
+
+class PTGTaskClass(TaskClass):
+    """Task class built from closed-form flow specs."""
+
+    def __init__(self, tp: "Taskpool", name: str, tc_id: int,
+                 params: Sequence[str], specs: List[FlowSpec],
+                 space: Callable, affinity: Optional[Callable],
+                 priority: Optional[Callable]):
+        flows = [Flow(s.name, s.access) for s in specs]
+        for s in specs:
+            for d in s.ins:
+                if d.gather and not (s.access & FlowAccess.CTL):
+                    raise ValueError(
+                        f"{name}.{s.name}: gather ins are CTL-only (data "
+                        f"fan-in needs one flow per producer)")
+                if d.gather and d.src is None:
+                    raise ValueError(
+                        f"{name}.{s.name}: gather requires a src "
+                        f"producer list")
+        # gather fan-in needs counting, not one-bit-per-flow masking
+        mode = DEPS_COUNTER if any(d.gather for s in specs
+                                   for d in s.ins) else DEPS_MASK
+        super().__init__(name, tc_id, params, flows, deps_mode=mode)
+        self.tp = tp
+        self.specs = {s.name: s for s in specs}
+        self.spec_list = specs
+        self.space = space
+        self.affinity = affinity
+        if priority is not None:
+            self.priority_fn = lambda locals: priority(tp.g, *locals)
+        self.iterate_successors = self._iterate_successors
+        self.deps_goal = self._deps_goal
+        self.data_lookup = self._data_lookup
+        # deps_goal runs once per ARRIVING activation (activate_dep), so
+        # gather classes would re-enumerate their N-element target list
+        # N times without this (the reference computes goals once per
+        # task instance); the closed form is pure, so cache per locals
+        self._goal_cache: Dict[Tuple[int, ...], int] = {}
+
+    # -- body decorators --------------------------------------------------
+    def body(self, fn: Callable = None, device: DeviceType = DeviceType.ALL,
+             evaluate: Optional[Callable] = None):
+        """Attach an incarnation (JDF ``BODY [type=...] ... END``)."""
+        def deco(f):
+            self.add_chore(Chore(device, f, evaluate=evaluate))
+            return f
+        return deco(fn) if fn is not None else deco
+
+    def body_cpu(self, fn=None, **kw):
+        return self.body(fn, device=DeviceType.CPU, **kw)
+
+    def body_cuda(self, fn=None, **kw):
+        return self.body(fn, device=DeviceType.CUDA, **kw)
+
+    # -- closed-form vtable ----------------------------------------------
+    def _active_in(self, g, spec: FlowSpec, params) -> Optional[In]:
+        active = [d for d in spec.ins if d.active(g, params)]
+        if len(active) > 1:
+            raise RuntimeError(
+                f"{self.name}{tuple(params)}: flow {spec.name} has "
+                f"{len(active)} active input deps (guards must be disjoint)")
+        return active[0] if active else None
+
+    @staticmethod
+    def _coord_set(targets) -> set:
+        """Normalize a gather target list to a set of coordinate tuples
+        (accepts generators; duplicates collapse — each producer sends
+        exactly one activation, so a duplicated coordinate must not
+        inflate the goal into an unreachable count). A bare tuple means
+        ONE coordinate, matching the Out-dst convention."""
+        if isinstance(targets, tuple):
+            targets = [targets]
+        return {tuple(x) if isinstance(x, (tuple, list)) else (x,)
+                for x in targets}
+
+    def _deps_goal(self, locals) -> int:
+        """Mask of flow bits (mask mode) or count (counter mode, used by
+        CTL-gather classes) of *task*-fed deps; collection reads and NEW
+        are resolved locally at prepare_input, not counted."""
+        g = self.tp.g
+        if self.deps_mode == DEPS_COUNTER:
+            key = tuple(locals)
+            cached = self._goal_cache.get(key)
+            if cached is not None:
+                return cached
+            count = 0
+            for f in self.flows:
+                dep = self._active_in(g, self.specs[f.name], locals)
+                if dep is None or dep.src is None:
+                    continue
+                if dep.gather:
+                    count += len(self._coord_set(dep.src[1](g, *locals)))
+                else:
+                    count += 1
+            self._goal_cache[key] = count
+            return count
+        mask = 0
+        for f in self.flows:
+            dep = self._active_in(g, self.specs[f.name], locals)
+            if dep is not None and dep.src is not None:
+                mask |= 1 << f.index
+        return mask
+
+    def _data_lookup(self, task: Task) -> None:
+        """Resolve collection-sourced and NEW inputs (generated
+        data_lookup / jdf_generate_code_data_lookup analog)."""
+        g = self.tp.g
+        for f in self.flows:
+            if f.name in task.data:
+                continue
+            dep = self._active_in(g, self.specs[f.name], task.locals)
+            if dep is None:
+                continue
+            if dep.data is not None:
+                dc, key = dep.data(g, *task.locals)
+                value = dc.data_of(key)
+                ctx = self.tp.context
+                if ctx is not None:
+                    # stage-through: the collection keeps the staged
+                    # tensor so one transfer serves every reader
+                    # (Context.stage_read)
+                    value = ctx.stage_read(dc, key, value)
+            elif dep.new is not None:
+                value = dep.new(g, *task.locals)
+            else:
+                continue
+            if dep.reshape is not None:
+                value = dep.reshape.apply(value)
+            task.data[f.name] = value
+
+    def _reshape_in(self, flow_name: str) -> bool:
+        """Does any In of this class's ``flow_name`` declare a reshape?
+        (cached — keeps the no-reshape hot path free of guard evals)"""
+        cache = self.__dict__.setdefault("_reshape_in_cache", {})
+        hit = cache.get(flow_name)
+        if hit is None:
+            hit = any(d.reshape is not None
+                      for d in self.specs[flow_name].ins)
+            cache[flow_name] = hit
+        return hit
+
+    def _iterate_successors(self, task: Task):
+        """Producer-side expansion (generated iterate_successors analog,
+        jdf2c.c; consumed by parsec_release_dep_fct parsec.c:1783)."""
+        g = self.tp.g
+        for f in self.flows:
+            spec = self.specs[f.name]
+            value = None
+            if not f.is_ctl:
+                value = task.output.get(f.name, task.data.get(f.name))
+            promise = None   # one shared DataCopyFuture per produced flow
+            for dep in spec.outs:
+                if not dep.active(g, task.locals):
+                    continue
+                if dep.data is not None:
+                    dc, key = dep.data(g, *task.locals)
+                    v = value if dep.reshape is None \
+                        else dep.reshape.apply(value)
+                    yield DataRef(collection=dc, key=key, value=v)
+                    continue
+                cls_name, params_fn, dst_flow = dep.dst
+                dst_tc = self.tp.task_class_by_name(cls_name)
+                targets = params_fn(g, *task.locals)
+                if isinstance(targets, tuple):
+                    targets = [targets]
+                dst_bit_flow = dst_tc.flow_by_name[dst_flow]
+                consumer_reshapes = dst_tc._reshape_in(dst_flow)
+                for tgt in targets:
+                    tgt = tuple(tgt) if isinstance(tgt, (tuple, list)) else (tgt,)
+                    composed = None
+                    if dep.reshape is not None or consumer_reshapes:
+                        dst_in = dst_tc._active_in(
+                            g, dst_tc.specs[dst_flow], tgt)
+                        composed = compose_specs(
+                            dep.reshape,
+                            dst_in.reshape if dst_in is not None else None)
+                    v = None if dst_bit_flow.is_ctl else value
+                    if composed is not None and v is not None:
+                        if promise is None:
+                            promise = DataCopyFuture(value)
+                        v = promise
+                    yield SuccessorRef(
+                        task_class=dst_tc, locals=tgt, flow_name=dst_flow,
+                        value=v, reshape_spec=composed,
+                        dep_index=dst_bit_flow.index,
+                        priority=dst_tc.priority_fn(tgt),
+                        src_flow=f.name)
+
+    # -- distribution -----------------------------------------------------
+    def affinity_rank(self, locals) -> int:
+        if self.affinity is None:
+            return 0
+        dc, key = self.affinity(self.tp.g, *locals)
+        return dc.rank_of(key)
+
+    def enumerate_space(self) -> Iterable[Tuple[int, ...]]:
+        for p in self.space(self.tp.g):
+            yield tuple(p) if isinstance(p, (tuple, list)) else (p,)
+
+    def nb_local_tasks(self) -> int:
+        """Closed-form task count (generated nb_local_tasks analog; one
+        process holds every task in this slice)."""
+        return sum(1 for _ in self.enumerate_space())
+
+
+class Taskpool(CoreTaskpool):
+    """PTG taskpool: globals namespace + task classes
+    (the ``__parsec_<name>_internal_taskpool_t`` analog)."""
+
+    def __init__(self, name: str = "ptg", **globals_kw):
+        super().__init__(name=name)
+        self.g = types.SimpleNamespace(**globals_kw)
+        self.startup_hook = self._startup
+
+    def task_class_by_name(self, name: str) -> PTGTaskClass:
+        return self._tc_by_name[name]
+
+    def task_class(self, name: str, params: Sequence[str],
+                   space: Callable, flows: List[FlowSpec],
+                   affinity: Optional[Callable] = None,
+                   priority: Optional[Callable] = None) -> PTGTaskClass:
+        tc = PTGTaskClass(self, name, len(self.task_classes), params,
+                          flows, space, affinity, priority)
+        self.add_task_class(tc)
+        return tc
+
+    # -- startup (jdf_generate_startup_tasks analog) ----------------------
+    def _startup(self, tp) -> List[Task]:
+        total = 0
+        ready: List[Task] = []
+        for tc in self.task_classes:
+            for p in tc.enumerate_space():
+                total += 1
+                if tc.deps_goal(p) == 0:
+                    t = Task(self, tc, p, priority=tc.priority_fn(p))
+                    ready.append(t)
+        self.set_nb_tasks(total)
+        return ready
+
+
+def check_taskpool(tp: Taskpool) -> None:
+    """Cross-validate producer (outs) and consumer (ins) dep declarations
+    by enumerating the whole space — the iterators_checker PINS module
+    equivalent (mca/pins/iterators_checker), used by tests.
+
+    Verifies: every SuccessorRef lands on an existing task instance and a
+    flow whose active In names the producer back; every task's goal mask is
+    covered by exactly the refs aimed at it.
+    """
+    g = tp.g
+    exists: Dict[str, set] = {tc.name: set(tc.enumerate_space())
+                              for tc in tp.task_classes}
+    incoming: Dict[Tuple[str, Tuple], int] = {}
+    # counter-mode consumers additionally track WHICH producer fed them
+    # how many times — a duplicate edge compensated by a missing one
+    # passes a bare count but breaks the gather barrier at runtime
+    incoming_pairs: Dict[Tuple[str, Tuple], Dict[Tuple, int]] = {}
+    for tc in tp.task_classes:
+        for p in tc.enumerate_space():
+            task = Task(tp, tc, p)
+            for f in tc.flows:
+                task.data[f.name] = 0
+                task.output[f.name] = 0
+            for ref in tc.iterate_successors(task):
+                if isinstance(ref, DataRef):
+                    continue
+                if ref.locals not in exists[ref.task_class.name]:
+                    raise AssertionError(
+                        f"{tc.name}{p} -> {ref.task_class.name}{ref.locals}: "
+                        f"target task does not exist")
+                spec = ref.task_class.specs[ref.flow_name]
+                dep = ref.task_class._active_in(g, spec, ref.locals)
+                if dep is None or dep.src is None:
+                    raise AssertionError(
+                        f"{tc.name}{p} -> {ref.task_class.name}{ref.locals}."
+                        f"{ref.flow_name}: consumer declares no task input")
+                src_cls, src_params_fn, src_flow = dep.src
+                sp = src_params_fn(g, *ref.locals)
+                if dep.gather:
+                    members = PTGTaskClass._coord_set(sp)
+                    if src_cls != tc.name or tuple(p) not in members:
+                        raise AssertionError(
+                            f"{ref.task_class.name}{ref.locals}."
+                            f"{ref.flow_name}: gather over {src_cls} does "
+                            f"not name {tc.name}{p}")
+                else:
+                    sp = tuple(sp) if isinstance(sp, (tuple, list)) else (sp,)
+                    if src_cls != tc.name or tuple(sp) != tuple(p):
+                        raise AssertionError(
+                            f"{ref.task_class.name}{ref.locals}."
+                            f"{ref.flow_name} expects {src_cls}{sp}, "
+                            f"got {tc.name}{p}")
+                k = (ref.task_class.name, ref.locals)
+                if ref.task_class.deps_mode == DEPS_COUNTER:
+                    incoming[k] = incoming.get(k, 0) + 1
+                    pk = (tc.name, tuple(p), ref.flow_name)
+                    pairs = incoming_pairs.setdefault(k, {})
+                    pairs[pk] = pairs.get(pk, 0) + 1
+                else:
+                    incoming[k] = incoming.get(k, 0) | (1 << ref.dep_index)
+    for tc in tp.task_classes:
+        for p in tc.enumerate_space():
+            goal = tc.deps_goal(p)
+            got = incoming.get((tc.name, p), 0)
+            if got != goal:
+                kind = "count" if tc.deps_mode == DEPS_COUNTER else "mask"
+                raise AssertionError(
+                    f"{tc.name}{p}: goal {kind} {goal} but incoming deps "
+                    f"{got}")
+            if tc.deps_mode != DEPS_COUNTER:
+                continue
+            # every expected producer must feed EXACTLY once
+            expected: Dict[Tuple, int] = {}
+            for f in tc.flows:
+                dep = tc._active_in(g, tc.specs[f.name], p)
+                if dep is None or dep.src is None:
+                    continue
+                src_cls, src_params_fn, _sf = dep.src
+                if dep.gather:
+                    for coord in PTGTaskClass._coord_set(
+                            src_params_fn(g, *p)):
+                        expected[(src_cls, coord, f.name)] = 1
+                else:
+                    sp = src_params_fn(g, *p)
+                    sp = tuple(sp) if isinstance(sp, (tuple, list)) else (sp,)
+                    key = (src_cls, sp, f.name)
+                    expected[key] = expected.get(key, 0) + 1
+            got_pairs = incoming_pairs.get((tc.name, p), {})
+            if got_pairs != expected:
+                raise AssertionError(
+                    f"{tc.name}{p}: producer multiplicity mismatch — "
+                    f"expected {expected}, got {got_pairs}")
