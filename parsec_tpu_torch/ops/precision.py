@@ -12,8 +12,11 @@ PyTorch keeps these as two process-wide flags,
 ``torch.backends.cuda.matmul.allow_tf32`` and
 ``torch.backends.cudnn.allow_tf32``; :func:`apply_matmul_precision` sets
 both explicitly so the mode in force never depends on PyTorch's defaults
-(matmul FP32, cuDNN TF32). The hand-written flash kernel ignores them: it
-always accumulates in full FP32 on the CUDA cores.
+(matmul FP32, cuDNN TF32). The hand-written flash kernel reads the knob
+itself (``flash_attention.tf32_passes``), as the reference kernel does:
+one TF32 tensor-core pass per product under ``default``, 3xTF32
+(FP32-level accuracy) under ``high`` and ``highest``; it accumulates in
+FP32 either way.
 """
 
 from __future__ import annotations
