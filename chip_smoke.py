@@ -25,8 +25,26 @@
    the card. The ``main_path`` line adds the bytes staged onto the card and,
    from a ``torch.profiler`` pass over one extra step, the device time of
    both kernels and its share of the step's wall time.
-4. Prints one JSON line describing the kernels, then the last line
-   ``{"ok": true, "device": {...}}``.
+4. POTRF panel path (``potrf_path`` lines): the flagship tiled Cholesky at
+   the reference's own width, N=40960, NB=1024 (NT=40, 1600 tasks, 118
+   waves), f32, left-looking, ``plan_taskpool`` → ``PanelExecutor`` on
+   ``cuda``, in two modes: ``potrf.trsm_hook=gemm`` under
+   ``ops.matmul_precision=default`` (TF32 products) and ``solve`` under
+   ``highest`` (FP32). The input A₀ = ½(M+Mᵀ) + 2N·I is made on the card
+   from a seeded ``torch.Generator``. Each line gives the host time to
+   plan and build the executor, the median wall time of three runs from a
+   fresh state, GFLOP/s, the share of the card's bound for the mode, the
+   time of ``torch.linalg.cholesky`` (cuSOLVER) on A₀ in the same mode,
+   the probe residual ‖(LLᵀ−A₀)x‖/‖A₀x‖ in full FP32, and, from one
+   ``torch.profiler`` pass, the kernels' device time, the share of the
+   wall time the card is busy and the five kernels with the most device
+   time; and the peak device memory.
+5. POTRF on the host runtime (``potrf_host`` lines): ``init(nb_cores=8)``
+   on ``cuda``, ``build_potrf`` and ``build_potrf_left`` at N=8192,
+   NB=1024, ``highest``; every task must run on the CUDA device module.
+6. Prints one JSON line describing the hand-written kernels (the POTRF
+   path has none: its tile bodies run on cuBLAS and cuSOLVER), then the
+   last line ``{"ok": true, "device": {...}}``.
 
 Any failure raises and the script exits non-zero before the last line.
 Without a GPU it exits 2 and prints nothing to standard output.
@@ -46,6 +64,7 @@ import numpy as np
 SEED = 0
 TF32_PEAK = 495e12     # H100 SXM, dense TF32 tensor cores (data sheet)
 BF16_PEAK = 989e12     # H100 SXM, dense bf16 tensor cores (data sheet)
+FP32_PEAK = 67e12      # H100 SXM, float32 outside the tensor cores
 HBM_RATE = 3.35e12     # H100 SXM device memory, bytes/s
 MODES = {"highest": 3, "default": 1}   # ops.matmul_precision -> TF32 passes
 # kernel vs plain version (full FP32) on the same inputs, max abs error
@@ -65,6 +84,17 @@ TOL = {("float32", 3): {"o": 5e-4, "lse": 1e-3},
 COMBINE_TOL = 1e-5     # the merge in f32, same formula, different order
 # block output vs the dense FP32 reference: |Y - ref| <= ATOL + RTOL*|ref|
 Y_ATOL, Y_RTOL = 1e-4, 1e-3
+
+# POTRF flagship (bench.py's headline configuration): N, NB, and per
+# mode (potrf.trsm_hook, ops.matmul_precision, peak FLOP/s of the
+# products the mode runs, probe-residual tolerance). gemm/default squares
+# the diagonal factor's condition number and rounds products to TF32;
+# solve/highest is the reference numerics (4.5e-7 measured there).
+POTRF_N, POTRF_NB = 40960, 1024
+POTRF_MODES = [("gemm", "default", TF32_PEAK, 1e-3),
+               ("solve", "highest", FP32_PEAK, 1e-5)]
+POTRF_HOST_N = 8192
+POTRF_RUNS = 3
 
 # (S, Sk, H, dh, causal, dtype)
 MAIN_TILE = (1024, 1024, 1, 128, False, "float32")
@@ -277,29 +307,50 @@ def combine_phase(rng):
     return row
 
 
+def device_events(prof):
+    """The device side of a ``torch.profiler`` pass (kernels, copies,
+    memsets): their summed time (s), the time the device was busy (s,
+    the union of their intervals) and ``{name: (summed s, count)}``.
+    The host-side op events are left out: an op's "self device time"
+    repeats the time of the kernels it launched."""
+    import torch
+    spans, by_name = [], {}
+    for e in prof.events():
+        if e.device_type == torch.autograd.DeviceType.CPU or \
+                getattr(e, "is_user_annotation", False):
+            continue
+        spans.append((e.time_range.start, e.time_range.end))
+        s, c = by_name.get(e.name, (0.0, 0))
+        by_name[e.name] = (s + e.time_range.elapsed_us() * 1e-6, c + 1)
+    busy, end = 0.0, None
+    for a, b in sorted(spans):
+        if end is None or a > end:
+            busy += b - a
+            end = b
+        elif b > end:
+            busy += b - end
+            end = b
+    return (sum(b - a for a, b in spans) * 1e-6, busy * 1e-6, by_name)
+
+
 def profile_step(run_step):
     """Device time of the flash and combine kernels, and of every kernel,
     over one block step under ``torch.profiler``; the step's wall time
     under the profiler. ``None`` for device times the profiler did not
     see."""
-    import torch
     from torch.profiler import ProfilerActivity, profile
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         wall = run_step()
-    fa = comb = total = 0.0
-    for e in prof.key_averages():
-        us = _self_device_us(e)
-        total += us
-        if "fa_fwd_kernel" in e.key:
-            fa += us
-        elif "fa_combine_kernel" in e.key:
-            comb += us
+    total, _busy, by_name = device_events(prof)
+    fa = sum(s for n, (s, _c) in by_name.items() if "fa_fwd_kernel" in n)
+    comb = sum(s for n, (s, _c) in by_name.items()
+               if "fa_combine_kernel" in n)
     seen = fa > 0.0
     return {"profiled_wall_s": wall,
-            "flash_device_s": fa * 1e-6 if seen else None,
-            "combine_device_s": comb * 1e-6 if seen else None,
-            "all_kernels_device_s": total * 1e-6 if seen else None}
+            "flash_device_s": fa if seen else None,
+            "combine_device_s": comb if seen else None,
+            "all_kernels_device_s": total if seen else None}
 
 
 def main_path(rng):
@@ -400,6 +451,247 @@ def main_path(rng):
     return launches, combine_launches
 
 
+@contextlib.contextmanager
+def knob(name, value):
+    """Run with the MCA parameter ``name`` set to ``value``."""
+    from parsec_tpu_torch import mca_param
+    mca_param.set(name, value)
+    try:
+        yield
+    finally:
+        mca_param.unset(name)
+
+
+def spd_on_card(n, gen):
+    """A₀ = ½(M+Mᵀ) + 2n·I on the card, M standard normal from ``gen``:
+    exactly symmetric, diagonally dominant."""
+    import torch
+    M = torch.randn(n, n, generator=gen, device="cuda")
+    A0 = M + M.mT
+    del M
+    A0.mul_(0.5)
+    A0.diagonal().add_(2.0 * n)
+    return A0
+
+
+def probe_residual(Lt, A0, nb, x):
+    """‖(LLᵀ−A₀)x‖/‖A₀x‖, L read from the upper block triangle of ``Lt``
+    (Lᵀ there: the panel executor's transposed state, whose diagonal
+    blocks are exactly upper-triangular), computed block by block in
+    ``x``'s dtype. In float32 it runs in full FP32 whatever the
+    factorisation's mode: TF32 products in the probe would floor the
+    residual near 1e-3 (bench.py:2246-2250). In float64 the probe's own
+    rounding drops out and what is left is the factor's error."""
+    import torch
+    nt = A0.shape[0] // nb
+    dt = x.dtype
+    with precision("highest"):
+        y = torch.cat([A0[i * nb:(i + 1) * nb].to(dt) @ x
+                       for i in range(nt)])
+        z = torch.cat([Lt[j * nb:(j + 1) * nb, j * nb:].to(dt) @ x[j * nb:]
+                       for j in range(nt)])
+        y2 = torch.cat([Lt[:(i + 1) * nb, i * nb:(i + 1) * nb].to(dt).mT
+                        @ z[:(i + 1) * nb] for i in range(nt)])
+        return ((y2 - y).norm() / y.norm()).item()
+
+
+def probe_residuals(Lt, A0, nb, gen):
+    """The probe with one x ~ N(0, 1) of shape (N, 8) from ``gen``, in
+    float32 (the checked residual) and in float64."""
+    import torch
+    x = torch.randn(A0.shape[0], 8, generator=gen, device="cuda")
+    return (probe_residual(Lt, A0, nb, x),
+            probe_residual(Lt, A0, nb, x.double()))
+
+
+def median_time(fn, prepare, runs):
+    """Median wall time of ``runs`` calls of ``fn(prepare())``, each
+    bracketed by ``torch.cuda.synchronize()``, after one untimed call;
+    returns it with the last call's result."""
+    import torch
+    times = []
+    out = None
+    for r in range(runs + 1):
+        out = None              # free the last result before the next
+        arg = prepare()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn(arg)
+        torch.cuda.synchronize()
+        if r:
+            times.append(time.perf_counter() - t0)
+        del arg
+    return sorted(times)[len(times) // 2], times, out
+
+
+def potrf_path():
+    """The flagship: left-looking POTRF through the planner and the
+    panel executor at N=40960, NB=1024, in both modes."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    from parsec_tpu_torch.algorithms.potrf import (build_potrf_left,
+                                                   potrf_flops)
+    from parsec_tpu_torch.compiled import PanelExecutor, plan_taskpool
+    from parsec_tpu_torch.data import TiledMatrix
+    N, NB = POTRF_N, POTRF_NB
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+    A0 = spd_on_card(N, gen)
+    flops = potrf_flops(N)
+    rows = []
+    for hook, mode, peak, tol in POTRF_MODES:
+        with knob("potrf.trsm_hook", hook), precision(mode):
+            # plan over an empty TiledMatrix: the planner only needs the
+            # tile grid; the state is made on the card
+            t0 = time.perf_counter()
+            plan = plan_taskpool(build_potrf_left(
+                TiledMatrix(N, N, NB, NB, name="A")))
+            plan_s = time.perf_counter() - t0
+            t0 = time.perf_counter()
+            ex = PanelExecutor(plan, device="cuda")
+            build_s = time.perf_counter() - t0
+            # D = A₀ᵀ = A₀ (symmetric): the transposed state
+            state_bytes = A0.nbytes
+            torch.cuda.reset_peak_memory_stats()
+            wall, walls, out = median_time(
+                ex.run_state, lambda: {"A": A0.clone()}, POTRF_RUNS)
+            peak_mem = torch.cuda.max_memory_allocated()
+            resident = torch.cuda.memory_allocated()
+            Lt = out["A"]
+            if Lt.shape != (N, N) or not torch.isfinite(
+                    torch.triu(Lt)).all():
+                raise AssertionError(f"factor {tuple(Lt.shape)} not finite "
+                                     f"or not ({N}, {N})")
+            del out
+            # one profiled run from a fresh state
+            state = {"A": A0.clone()}
+            torch.cuda.synchronize()
+            with profile(activities=[ProfilerActivity.CPU,
+                                     ProfilerActivity.CUDA]) as prof:
+                t0 = time.perf_counter()
+                ex.run_state(state)
+                torch.cuda.synchronize()
+                prof_wall = time.perf_counter() - t0
+            del state
+            dev_s, busy_s, by_name = device_events(prof)
+            if dev_s == 0.0:
+                raise AssertionError("torch.profiler saw no device time "
+                                     "in the POTRF run")
+            top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:5]
+            # the one PyTorch call that computes the same function
+            lib_ms, lib_walls, Lref = median_time(
+                torch.linalg.cholesky, lambda: A0, POTRF_RUNS)
+            del Lref
+            torch.cuda.empty_cache()
+        resid, resid64 = probe_residuals(Lt, A0, NB, gen)
+        del Lt
+        torch.cuda.empty_cache()
+        if not math.isfinite(resid) or resid > tol:
+            raise AssertionError(f"POTRF {hook}/{mode}: probe residual "
+                                 f"{resid} above {tol}")
+        row = {"N": N, "NB": NB, "NT": N // NB, "tasks": plan.n_tasks,
+               "waves": plan.n_waves, "dtype": "float32",
+               "trsm_hook": hook, "matmul_precision": mode,
+               "plan_s": plan_s, "build_executor_s": build_s,
+               "wall_s": wall, "wall_s_runs": walls,
+               "gflops": flops / wall / 1e9,
+               "bound_s": flops / peak, "bound_tflops": peak / 1e12,
+               "share_of_bound": flops / peak / wall,
+               "cholesky_library_s": lib_ms, "cholesky_library_runs":
+               lib_walls, "residual": resid, "tol": tol,
+               "residual_fp64_probe": resid64,
+               "profiled_wall_s": prof_wall, "device_s": dev_s,
+               "device_busy_s": busy_s,
+               "device_busy_share": busy_s / prof_wall,
+               # the profiler slows the host, not the kernels: the same
+               # busy time over the unprofiled median wall
+               "device_busy_over_wall": busy_s / wall,
+               "device_kernels": sum(c for _s, c in by_name.values()),
+               "top_kernels": [{"name": n[:120], "s": s, "count": c}
+                               for n, (s, c) in top],
+               "state_bytes": state_bytes,
+               "peak_mem_bytes": peak_mem,
+               "peak_over_resident_bytes": peak_mem - resident}
+        print("potrf_path " + json.dumps(row), flush=True)
+        rows.append(row)
+    del A0
+    torch.cuda.empty_cache()
+    return rows
+
+
+def potrf_host():
+    """POTRF through the host runtime on the card, both builders, at
+    N=8192, NB=1024 (NT=8): host tiles in, every task on the CUDA
+    device module."""
+    import torch
+    import parsec_tpu_torch as parsec
+    from parsec_tpu_torch.algorithms.potrf import (build_potrf,
+                                                   build_potrf_left)
+    from parsec_tpu_torch.core.task import DeviceType
+    from parsec_tpu_torch.data import TiledMatrix
+    N, NB = POTRF_HOST_N, POTRF_NB
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 1)
+    A0 = spd_on_card(N, gen)
+    host = A0.cpu().numpy()
+    rows = []
+    with precision("highest"):
+        ctx = parsec.init(nb_cores=8)
+        try:
+            [cuda_dev] = ctx.devices.by_type(DeviceType.CUDA)
+            [cpu_dev] = ctx.devices.by_type(DeviceType.CPU)
+            for build in (build_potrf, build_potrf_left):
+                A = TiledMatrix.from_array(host, NB, NB, name="A")
+                tp = build(A)
+                n_tasks = sum(tc.nb_local_tasks() for tc in tp.task_classes)
+                on_cuda, on_cpu = (cuda_dev.stats["tasks"],
+                                   cpu_dev.stats["tasks"])
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                ctx.add_taskpool(tp)
+                ctx.start()
+                if not ctx.wait(timeout=600):
+                    raise AssertionError(f"{build.__name__} did not "
+                                         f"terminate")
+                torch.cuda.synchronize()
+                wall = time.perf_counter() - t0
+                on_cuda = cuda_dev.stats["tasks"] - on_cuda
+                on_cpu = cpu_dev.stats["tasks"] - on_cpu
+                if on_cuda != n_tasks or on_cpu != 0:
+                    raise AssertionError(
+                        f"{build.__name__}: tasks on cuda {on_cuda}, on "
+                        f"cpu {on_cpu}, expected all {n_tasks} on cuda")
+                # Lᵀ in transposed-state form for the probe
+                Lt = torch.zeros(N, N, device="cuda")
+                for i in range(N // NB):
+                    for j in range(i + 1):
+                        t = A.data_of((i, j))
+                        if not (isinstance(t, torch.Tensor) and
+                                t.device.type == "cuda"):
+                            raise AssertionError(
+                                f"{build.__name__}: tile {(i, j)} was not "
+                                f"written back on the card")
+                        Lt[j * NB:(j + 1) * NB, i * NB:(i + 1) * NB] = \
+                            (torch.tril(t) if i == j else t).mT
+                resid, resid64 = probe_residuals(Lt, A0, NB, gen)
+                if not math.isfinite(resid) or resid > 1e-5:
+                    raise AssertionError(f"{build.__name__}: probe residual "
+                                         f"{resid} above 1e-5")
+                row = {"builder": build.__name__, "N": N, "NB": NB,
+                       "NT": N // NB, "tasks": n_tasks,
+                       "tasks_on_cuda": on_cuda, "tasks_on_cpu": on_cpu,
+                       "nb_cores": ctx.nb_cores,
+                       "matmul_precision": "highest", "wall_s": wall,
+                       "tasks_per_s": n_tasks / wall, "residual": resid,
+                       "tol": 1e-5, "residual_fp64_probe": resid64}
+                print("potrf_host " + json.dumps(row), flush=True)
+                rows.append(row)
+                del Lt, A
+        finally:
+            parsec.fini(ctx)
+    del A0
+    torch.cuda.empty_cache()
+    return rows
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -424,6 +716,8 @@ def main() -> int:
     rows = kernel_phase(rng)
     comb = combine_phase(rng)
     launches, combine_launches = main_path(rng)
+    potrf_path()
+    potrf_host()
 
     src = "parsec_tpu_torch/ops/csrc/flash_attention.cu"
     tile = rows[(MAIN_TILE, "highest")]     # the main path's mode

@@ -10,9 +10,12 @@ Public API (mirrors parsec_init / parsec_context_* from runtime.h)::
 
     import parsec_tpu_torch as parsec
     ctx = parsec.init(nb_cores=8)            # device="cuda" by default
-    tp  = build_transformer_block(...)       # a PTG taskpool
+    tp  = build_potrf(A)                     # a PTG taskpool
     ctx.add_taskpool(tp); ctx.start(); ctx.wait()
     parsec.fini(ctx)
+
+    # the compiled flagship path: planner waves fused into panel ops
+    PanelExecutor(plan_taskpool(build_potrf_left(A))).run()
 """
 
 from .utils import mca_param
@@ -30,11 +33,12 @@ from . import sched
 from . import termdet
 from . import profiling
 from . import ops
+from . import compiled
 
 __all__ = [
     "init", "fini", "Context",
     "Taskpool", "TaskClass", "Flow", "FlowAccess", "Task", "DeviceType",
     "Future", "DataCopyFuture", "ReshapeSpec",
     "dsl", "ptg", "data", "device", "sched", "termdet", "profiling",
-    "ops", "mca_param", "debug_verbose", "set_verbosity",
+    "ops", "compiled", "mca_param", "debug_verbose", "set_verbosity",
 ]

@@ -71,14 +71,15 @@ class ExecutionStream:
         self.infos = InfoArray(per_stream_infos, self)
 
 
-def _resolve_device(device) -> torch.device:
-    """The context's ``torch.device``. ``cuda`` without a GPU raises: the
-    port never continues on the CPU unless the caller asked for it."""
+def resolve_device(device) -> torch.device:
+    """The ``torch.device`` a context or a compiled executor runs on.
+    ``cuda`` without a GPU raises: the port never continues on the CPU
+    unless the caller asked for it."""
     dev = torch.device(device)
     if dev.type == "cuda":
         if not torch.cuda.is_available():
             raise RuntimeError(
-                "parsec_tpu_torch.init: device 'cuda' requested but "
+                "parsec_tpu_torch: device 'cuda' requested but "
                 "torch.cuda.is_available() is False; pass device='cpu' "
                 "to run on the CPU")
         if dev.index is None:
@@ -99,7 +100,7 @@ class Context:
         from ..profiling import pins as pins_mod
         from ..utils import vpmap
 
-        self.torch_device = _resolve_device(device)
+        self.torch_device = resolve_device(device)
         if nb_cores is None or nb_cores <= 0:
             nb_cores = int(mca_param.get("runtime.nb_cores", 0)) or \
                 min(os.cpu_count() or 1, 8)

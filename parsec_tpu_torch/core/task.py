@@ -85,6 +85,16 @@ class Chore:
     device_type: DeviceType
     hook: Callable[..., Any]
     evaluate: Optional[Callable[["Task"], bool]] = None
+    # may be batched with same-class tasks by a compiled executor
+    batchable: bool = True
+    # Optional hand-written batched form used by the stacked wavefront
+    # executor in place of vmap(hook): ``batch_hook(*stacked_tiles) ->
+    # stacked outs`` (e.g. one wide-RHS triangular solve for a whole TRSM
+    # wave). ``batch_hook_shared`` names input flows the hook assumes hold
+    # ONE tile across the whole batch; the executor verifies this per
+    # group and falls back to vmap otherwise.
+    batch_hook: Optional[Callable[..., Any]] = None
+    batch_hook_shared: Optional[Sequence[str]] = None
 
 
 _task_counter = itertools.count()

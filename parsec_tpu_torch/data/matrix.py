@@ -1,0 +1,295 @@
+"""Tiled matrices and block-cyclic distributions.
+
+Reference: parsec_tiled_matrix_t (data_dist/matrix/matrix.h:98-124) and the
+distributions under data_dist/matrix/: 2D-block-cyclic with k-cyclicity and
+process-grid offsets (two_dim_rectangle_cyclic.c:109, grid_2Dcyclic.c),
+symmetric 2D-BC, tabular (arbitrary per-tile rank table,
+two_dim_tabular.c), and 1D cyclic vectors.
+
+A :class:`TiledMatrix` stores local tiles keyed by (row, col) tile index.
+A tile is a numpy array or a torch tensor on any device: a collection
+handed in by the user holds numpy tiles, and the host runtime writes its
+outputs back as tensors on the context's device (``DataRef`` writes and
+``Context.stage_read``). Whole-matrix host views (:meth:`to_array`,
+:class:`SubtileView`) bring tensors to the host themselves. The stacked
+form (:meth:`to_stacked`) is one ``(ntiles, mb, nb)`` tensor on an
+explicit device, what the stacked wavefront executor gathers from.
+
+Extents must be multiples of the tile size.
+"""
+
+from __future__ import annotations
+
+import threading
+from typing import Any, Dict, Iterable, List, Optional, Tuple
+
+import numpy as np
+import torch
+
+from .collection import DataCollection
+
+
+def host_array(tile: Any) -> np.ndarray:
+    """A tile as a host numpy array: a tensor on any device is copied to
+    the host (``np.asarray`` fails on a CUDA tensor)."""
+    if isinstance(tile, torch.Tensor):
+        return tile.detach().cpu().numpy()
+    return np.asarray(tile)
+
+
+def numpy_dtype(dtype: Any) -> np.dtype:
+    """numpy dtype of a numpy or torch dtype."""
+    if isinstance(dtype, torch.dtype):
+        return torch.empty(0, dtype=dtype).numpy().dtype
+    return np.dtype(dtype)
+
+
+def torch_dtype(dtype: Any) -> torch.dtype:
+    """torch dtype of a numpy or torch dtype."""
+    if isinstance(dtype, torch.dtype):
+        return dtype
+    return torch.from_numpy(np.empty(0, dtype=dtype)).dtype
+
+
+class Distribution:
+    """rank_of policy for 2D tile indices."""
+
+    def rank_of(self, i: int, j: int) -> int:
+        return 0
+
+    @property
+    def nodes(self) -> int:
+        return 1
+
+
+class TwoDimBlockCyclic(Distribution):
+    """2D block cyclic over a P×Q process grid with k-cyclicity (kp, kq)
+    and grid offsets (ip, jq) — two_dim_rectangle_cyclic.c:109 analog."""
+
+    def __init__(self, P: int, Q: int, kp: int = 1, kq: int = 1,
+                 ip: int = 0, jq: int = 0):
+        self.P, self.Q, self.kp, self.kq, self.ip, self.jq = P, Q, kp, kq, ip, jq
+
+    def rank_of(self, i: int, j: int) -> int:
+        p = ((i // self.kp) + self.ip) % self.P
+        q = ((j // self.kq) + self.jq) % self.Q
+        return p * self.Q + q
+
+    @property
+    def nodes(self) -> int:
+        return self.P * self.Q
+
+
+class SymTwoDimBlockCyclic(TwoDimBlockCyclic):
+    """Symmetric (lower/upper) 2D block cyclic: only one triangle is
+    stored; rank_of mirrors across the diagonal
+    (sym_two_dim_rectangle_cyclic.c analog)."""
+
+    def __init__(self, P: int, Q: int, uplo: str = "lower", **kw):
+        super().__init__(P, Q, **kw)
+        self.uplo = uplo
+
+    def stored(self, i: int, j: int) -> bool:
+        return j <= i if self.uplo == "lower" else i <= j
+
+    def rank_of(self, i: int, j: int) -> int:
+        if not self.stored(i, j):
+            i, j = j, i
+        return super().rank_of(i, j)
+
+
+class TwoDimTabular(Distribution):
+    """Arbitrary per-tile rank table (two_dim_tabular.c analog)."""
+
+    def __init__(self, table: Dict[Tuple[int, int], int]):
+        self.table = dict(table)
+        self._nodes = max(self.table.values(), default=0) + 1
+
+    def rank_of(self, i: int, j: int) -> int:
+        return self.table[(i, j)]
+
+    @property
+    def nodes(self) -> int:
+        return self._nodes
+
+
+class TwoDimBandCyclic(Distribution):
+    """Band distribution (two_dim_band analog): tiles within ``band`` of
+    the diagonal are spread 1D-cyclically along the diagonal across all
+    ranks, tiles outside the band fall back to plain 2D block cyclic."""
+
+    def __init__(self, P: int, Q: int, band: int = 1, **kw):
+        self.band = band
+        self.off_band = TwoDimBlockCyclic(P, Q, **kw)
+
+    def rank_of(self, i: int, j: int) -> int:
+        if abs(i - j) <= self.band:
+            # diagonal index, cyclic over the full rank set
+            return (min(i, j) * (2 * self.band + 1) + (i - j + self.band)) \
+                % self.off_band.nodes
+        return self.off_band.rank_of(i, j)
+
+    @property
+    def nodes(self) -> int:
+        return self.off_band.nodes
+
+
+class OneDimCyclic(Distribution):
+    """1D cyclic over rows (vector_two_dim_cyclic.c analog)."""
+
+    def __init__(self, P: int):
+        self.P = P
+
+    def rank_of(self, i: int, j: int) -> int:
+        return i % self.P
+
+    @property
+    def nodes(self) -> int:
+        return self.P
+
+
+class TiledMatrix(DataCollection):
+    """Tiled matrix collection (parsec_tiled_matrix_t analog). ``dtype``
+    is kept as a numpy dtype (a torch dtype is converted)."""
+
+    def __init__(self, m: int, n: int, mb: int, nb: int,
+                 dist: Optional[Distribution] = None, myrank: int = 0,
+                 dtype=np.float32, name: str = "A"):
+        dist = dist or Distribution()
+        super().__init__(name=name, nodes=dist.nodes, myrank=myrank)
+        if m % mb or n % nb:
+            raise ValueError("extents must be multiples of the tile size")
+        self.m, self.n, self.mb, self.nb = m, n, mb, nb
+        self.mt, self.nt = m // mb, n // nb
+        self.dist = dist
+        self.dtype = numpy_dtype(dtype)
+        self._tiles: Dict[Tuple[int, int], Any] = {}
+        self._lock = threading.Lock()
+
+    # -- vtable -----------------------------------------------------------
+    def rank_of(self, key) -> int:
+        i, j = key
+        return self.dist.rank_of(i, j)
+
+    def data_of(self, key) -> Any:
+        with self._lock:
+            t = self._tiles.get(tuple(key))
+        if t is None:
+            t = np.zeros((self.mb, self.nb), dtype=self.dtype)
+            with self._lock:
+                t = self._tiles.setdefault(tuple(key), t)
+        return t
+
+    def write_tile(self, key, value) -> None:
+        with self._lock:
+            self._tiles[tuple(key)] = value
+
+    def keys(self) -> Iterable[Tuple[int, int]]:
+        return [(i, j) for i in range(self.mt) for j in range(self.nt)]
+
+    def local_keys(self) -> List[Tuple[int, int]]:
+        return [k for k in self.keys() if self.is_local(k)]
+
+    # -- whole-matrix host views -----------------------------------------
+    @classmethod
+    def from_array(cls, arr, mb: int, nb: int,
+                   dist: Optional[Distribution] = None, myrank: int = 0,
+                   name: str = "A") -> "TiledMatrix":
+        """Tile a numpy array (numpy tiles) or a tensor (tensor tiles on
+        the tensor's device)."""
+        m, n = arr.shape
+        tm = cls(m, n, mb, nb, dist=dist, myrank=myrank,
+                 dtype=arr.dtype, name=name)
+        for i in range(tm.mt):
+            for j in range(tm.nt):
+                blk = arr[i*mb:(i+1)*mb, j*nb:(j+1)*nb]
+                tm.write_tile((i, j), blk.clone() if isinstance(
+                    blk, torch.Tensor) else np.ascontiguousarray(blk))
+        return tm
+
+    def to_array(self) -> np.ndarray:
+        out = np.zeros((self.m, self.n), dtype=self.dtype)
+        for (i, j) in self.keys():
+            out[i*self.mb:(i+1)*self.mb, j*self.nb:(j+1)*self.nb] = \
+                host_array(self.data_of((i, j)))
+        return out
+
+    # -- stacked device representation -----------------------------------
+    def tile_index(self) -> Dict[Tuple[int, int], int]:
+        """Stable (i, j) → slot mapping for the stacked representation.
+
+        Owner-computes slot order: with a multi-node distribution, tiles
+        owned by the same rank occupy a contiguous slot range (ranks in
+        order)."""
+        keys = sorted(self.keys())
+        if self.dist.nodes > 1:
+            keys.sort(key=lambda k: (self.rank_of(k),) + tuple(k))
+        return {k: s for s, k in enumerate(keys)}
+
+    def to_stacked(self, device) -> Tuple[torch.Tensor,
+                                          Dict[Tuple[int, int], int]]:
+        """All tiles stacked into one ``(ntiles, mb, nb)`` tensor on
+        ``device``, in :meth:`tile_index` slot order."""
+        idx = self.tile_index()
+        dev = torch.device(device)
+        tiles = [torch.as_tensor(self.data_of(k)).to(dev)
+                 for k in sorted(idx, key=idx.get)]
+        return torch.stack(tiles), idx
+
+    def from_stacked(self, arr: torch.Tensor,
+                     idx: Dict[Tuple[int, int], int]) -> None:
+        """Write each slot of a stacked tensor back as its tile (a view
+        of ``arr``, on ``arr``'s device)."""
+        for k, s in idx.items():
+            self.write_tile(k, arr[s])
+
+    # -- recursive subdivision --------------------------------------------
+    def subtile(self, key: Tuple[int, int], mb: int, nb: int,
+                name: Optional[str] = None) -> "SubtileView":
+        """View one tile as a finer-tiled matrix for recursive algorithms
+        (subtile.c analog)."""
+        return SubtileView(self, key, mb, nb, name=name)
+
+
+class SubtileView(TiledMatrix):
+    """Recursive subdivision of a single parent tile (subtile.c analog).
+
+    Sub-tiles are slices of a private host working copy of the parent
+    tile; :meth:`flush` writes the assembled result back to the parent —
+    the nested taskpool runs entirely on the view, then commits once.
+    """
+
+    def __init__(self, parent: TiledMatrix, key: Tuple[int, int],
+                 mb: int, nb: int, name: Optional[str] = None):
+        self.parent = parent
+        self.parent_key = tuple(key)
+        base = np.array(host_array(parent.data_of(key)), copy=True)
+        super().__init__(base.shape[0], base.shape[1], mb, nb,
+                         dtype=base.dtype,
+                         name=name or f"{parent.name}[{key}]")
+        self._base = base
+
+    def data_of(self, key) -> Any:
+        i, j = key
+        with self._lock:
+            t = self._tiles.get((i, j))
+        if t is None:
+            t = np.ascontiguousarray(
+                self._base[i*self.mb:(i+1)*self.mb,
+                           j*self.nb:(j+1)*self.nb])
+            with self._lock:
+                t = self._tiles.setdefault((i, j), t)
+        return t
+
+    def flush(self) -> None:
+        """Commit the subdivided result into the parent tile."""
+        self.parent.write_tile(self.parent_key, self.to_array())
+
+    def to_array(self) -> np.ndarray:
+        out = np.array(self._base, copy=True)
+        with self._lock:
+            items = list(self._tiles.items())
+        for (i, j), t in items:
+            out[i*self.mb:(i+1)*self.mb, j*self.nb:(j+1)*self.nb] = \
+                host_array(t)
+        return out

@@ -128,8 +128,9 @@ class FlowSpec:
 
     ``tile``: optional ``lambda g, *p: (collection, key)`` naming the
     logical tile this flow reads/writes (JDF's data-placement info). Not
-    needed by the host runtime (values travel with activations); kept
-    for the compiled executors of a later slice.
+    needed by the host runtime (values travel with activations) but
+    required by the compiled executors (``compiled/``), which read and
+    write tiles in device stores instead of chasing values.
     """
     name: str
     access: FlowAccess
@@ -178,10 +179,17 @@ class PTGTaskClass(TaskClass):
 
     # -- body decorators --------------------------------------------------
     def body(self, fn: Callable = None, device: DeviceType = DeviceType.ALL,
-             evaluate: Optional[Callable] = None):
-        """Attach an incarnation (JDF ``BODY [type=...] ... END``)."""
+             evaluate: Optional[Callable] = None, batchable: bool = True,
+             batch_hook: Optional[Callable] = None,
+             batch_hook_shared=None):
+        """Attach an incarnation (JDF ``BODY [type=...] ... END``).
+        ``batch_hook``/``batch_hook_shared``: optional hand-batched form
+        for the compiled executor (see core.task.Chore)."""
         def deco(f):
-            self.add_chore(Chore(device, f, evaluate=evaluate))
+            self.add_chore(Chore(device, f, evaluate=evaluate,
+                                 batchable=batchable,
+                                 batch_hook=batch_hook,
+                                 batch_hook_shared=batch_hook_shared))
             return f
         return deco(fn) if fn is not None else deco
 
@@ -375,6 +383,19 @@ class Taskpool(CoreTaskpool):
                     ready.append(t)
         self.set_nb_tasks(total)
         return ready
+
+
+def taskpool_uses_reshape(tp: Taskpool) -> bool:
+    """True if any dep of any task class declares a reshape spec. The
+    compiled executors move raw tile values and must refuse such
+    taskpools instead of silently skipping the conversions (the host
+    runtime resolves them in complete_task)."""
+    for tc in tp.task_classes:
+        for spec in tc.spec_list:
+            if any(d.reshape is not None for d in spec.ins) or \
+                    any(d.reshape is not None for d in spec.outs):
+                return True
+    return False
 
 
 def check_taskpool(tp: Taskpool) -> None:

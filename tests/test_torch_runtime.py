@@ -205,6 +205,12 @@ def test_reshape_spec_on_tensors():
 def test_port_imports_neither_jax_nor_the_reference():
     code = ("import sys, parsec_tpu_torch\n"
             "import parsec_tpu_torch.algorithms.transformer\n"
+            "import parsec_tpu_torch.algorithms.potrf\n"
+            "import parsec_tpu_torch.compiled.panels\n"
+            "import parsec_tpu_torch.compiled.wavefront\n"
+            "import parsec_tpu_torch.data.matrix\n"
+            "import parsec_tpu_torch.ops.tile_kernels\n"
+            "import parsec_tpu_torch.ops.flash_attention\n"
             "bad = [m for m in sys.modules if m == 'jax' or "
             "m.startswith('jax.') or m == 'parsec_tpu' or "
             "m.startswith('parsec_tpu.')]\n"
